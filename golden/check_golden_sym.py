@@ -1,11 +1,11 @@
 """Validate the Python golden model bit-exactly against the C reference driver output."""
-import sys, numpy as np
-sys.path.insert(0, '/root/repo')
-from seal_embedded_tpu.config import default_parms
-from seal_embedded_tpu.golden import ckks
-from seal_embedded_tpu.golden.prng import Prng
-from seal_embedded_tpu.golden.sampling import sample_small_poly_ternary_96
-from seal_embedded_tpu.io.serialize import parse_poly_stream
+import os, sys, numpy as np
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from seal_embedded_jax.config import default_parms
+from seal_embedded_jax.golden import ckks
+from seal_embedded_jax.golden.prng import Prng
+from seal_embedded_jax.golden.sampling import sample_small_poly_ternary_96
+from seal_embedded_jax.io.serialize import parse_poly_stream
 
 def seed(tag): return bytes((tag + i) & 0xFF for i in range(64))
 
@@ -47,16 +47,16 @@ for tn, t in enumerate(tests):
     share_prng = Prng(seed(2))  # ckks_sym_init resets it every encode-encrypt sequence
     v = set_values(tn, n // 2)
     # encode check
-    from seal_embedded_tpu.golden.encode import encode_base
+    from seal_embedded_jax.golden.encode import encode_base
     pt = encode_base(p, v)
     assert np.array_equal(pt, np.array(t['pt'], dtype=np.int64)), f'test {tn}: pt mismatch'
     # pte: error prng reset each test with err_seed
-    from seal_embedded_tpu.golden.sampling import sample_add_poly_cbd_16
+    from seal_embedded_jax.golden.sampling import sample_add_poly_cbd_16
     pte = np.array(sample_add_poly_cbd_16(pt.tolist(), Prng(seed(3))), dtype=np.int64)
     assert np.array_equal(pte, np.array(t['pte'], dtype=np.int64)), f'test {tn}: pte mismatch'
     # per-prime c0/c1; note shareable_prng persists across tests/primes in driver
-    from seal_embedded_tpu.golden.sampling import sample_poly_uniform, expand_poly_ternary
-    from seal_embedded_tpu.golden.ntt import ntt_inpl
+    from seal_embedded_jax.golden.sampling import sample_poly_uniform, expand_poly_ternary
+    from seal_embedded_jax.golden.ntt import ntt_inpl
     for i, q in enumerate(p.moduli):
         w = p.ntt_root(q)
         c1 = sample_poly_uniform(n, q, share_prng)

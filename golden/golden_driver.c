@@ -1,6 +1,6 @@
 // Golden-vector driver: links the UNMODIFIED reference static library
 // (built from /root/reference/device) and drives its encode+encrypt pipeline
-// with deterministic seeds, printing every intermediate so the TPU framework
+// with deterministic seeds, printing every intermediate so the JAX framework
 // can be validated bit-for-bit.  This file is new glue code (mirrors the
 // calling pattern of the reference's own tests).
 //

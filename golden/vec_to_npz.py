@@ -1,11 +1,12 @@
 """Convert golden_driver text vectors into the compressed npz consumed by
 tests/ (same layout as tests/golden_sym_4096_3.npz)."""
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-from seal_embedded_tpu.io.serialize import parse_poly_stream  # noqa: E402
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from seal_embedded_jax.io.serialize import parse_poly_stream  # noqa: E402
 
 
 def convert(path, n, nprimes, out):

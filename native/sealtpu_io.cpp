@@ -1,8 +1,8 @@
-// sealtpu_io: native host-side serialization runtime for seal_embedded_tpu.
+// sealtpu_io: native host-side serialization runtime for seal_embedded_jax.
 //
 // The reference keeps serialization in native code on both sides of the wire
 // (device/lib/fileops.c, adapter/fileops.cpp).  This library is the
-// TPU-framework equivalent for the host: batched 2-bit ternary key
+// This framework's equivalent for the host: batched 2-bit ternary key
 // pack/unpack, ciphertext component (de)serialization, and the reference's
 // "name : { v0, v1, ... }" text-poly format, all exposed through a C ABI for
 // ctypes.  Formats match adapter/fileops.cpp:29-172 (sk) and

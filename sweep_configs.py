@@ -4,15 +4,16 @@ The reference sweeps its compile-time option matrix (data_load x ifft x
 ntt x index_map x sk = 160 rebuilds, device/scripts/test_all_configs.sh);
 this framework's option space is runtime, so one process sweeps it:
 
-    pipeline x encode x layout x order x ntt-impl
+    pipeline x encode x layout x order
 
 For every config the full batched encode+encrypt runs and is checked:
 
 * ok-flags must all be set;
 * configs that are specified to be BIT-IDENTICAL to the baseline
   (limbwise / reference-layout / forward / f64-encode) are compared
-  ciphertext-bit-for-bit: fused==limbwise, kernel==jnp, stream==scan,
-  sf==f64 (on IEEE backends; sf is the cross-backend bit-exact mode);
+  ciphertext-bit-for-bit: fused==limbwise, stream==scan, sf==f64 (on
+  backends whose f64 encode is bit-exact, api.ENCODE_BY_PLATFORM; sf is
+  the cross-backend bit-exact mode);
 * every config (including dd-encode, parallel layout, reverse walk —
   different bytes by design) must decrypt+decode back to the cleartext
   within the reference's decode tolerance (ckks_tests_common.c:228).
@@ -35,13 +36,14 @@ import numpy as np
 def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False):
     import jax
     import jax.numpy as jnp
-    import seal_embedded_tpu  # noqa: F401
-    from seal_embedded_tpu.config import Parms, PRIMES_27BIT, default_parms
-    from seal_embedded_tpu.ckks.fast import sym_encrypt_fused
-    from seal_embedded_tpu.ckks.limbwise import sym_encrypt_limbscan
-    from seal_embedded_tpu.ckks.stream import sym_encrypt_stream
-    from seal_embedded_tpu.ckks.sym import make_decryptor
-    from seal_embedded_tpu.ops.encode import make_decoder
+    import seal_embedded_jax  # noqa: F401
+    from seal_embedded_jax.api import ENCODE_BY_PLATFORM
+    from seal_embedded_jax.config import Parms, PRIMES_27BIT, default_parms
+    from seal_embedded_jax.ckks.fast import sym_encrypt_fused
+    from seal_embedded_jax.ckks.limbwise import sym_encrypt_limbscan
+    from seal_embedded_jax.ckks.stream import sym_encrypt_stream
+    from seal_embedded_jax.ckks.sym import make_decryptor
+    from seal_embedded_jax.ops.encode import make_decoder
     from functools import partial
 
     if degree <= 2048:
@@ -59,7 +61,7 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False):
     err = jnp.asarray(rng.integers(0, 2 ** 32, (batch, 16))
                       .astype(np.uint32))
 
-    ieee_backend = jax.default_backend() == "cpu"
+    ieee_backend = ENCODE_BY_PLATFORM.get(jax.default_backend()) == "f64"
     decryptor = make_decryptor(parms)
     decoder = make_decoder(parms)
 
@@ -118,19 +120,14 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False):
         record(f"limbwise layout={layout} order={order} encode={enc}",
                c0, c1, bool(np.asarray(out["ok"]).all()), bitexact)
 
-    # fused pipeline: ntt impl x encode.
-    impls = ["jnp"] if quick else ["jnp", "kernel"]
-    for impl, enc in itertools.product(impls, encodes):
-        os.environ["SEAL_TPU_NTT"] = impl
-        try:
-            out = jax.jit(partial(sym_encrypt_fused, parms=parms,
-                                  encode_mode=enc))(values, sk, share, err)
-            bitexact = (enc == "sf" or (enc == "f64" and ieee_backend))
-            record(f"fused impl={impl} encode={enc}",
-                   np.asarray(out["c0"]), np.asarray(out["c1"]),
-                   bool(np.asarray(out["ok"]).all()), bitexact)
-        finally:
-            del os.environ["SEAL_TPU_NTT"]
+    # fused pipeline: encode.
+    for enc in encodes:
+        out = jax.jit(partial(sym_encrypt_fused, parms=parms,
+                              encode_mode=enc))(values, sk, share, err)
+        bitexact = (enc == "sf" or (enc == "f64" and ieee_backend))
+        record(f"fused encode={enc}",
+               np.asarray(out["c0"]), np.asarray(out["c1"]),
+               bool(np.asarray(out["ok"]).all()), bitexact)
 
     # streaming pipeline: order x encode (f64 only in quick mode).
     for order, enc in itertools.product(
@@ -148,7 +145,7 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False):
     # OTF-roots NTT (SE_NTT_TYPE 0/1 analog, ntt.c:40-52,144-149): roots
     # synthesized in-graph, non-lazy Barrett butterflies — ciphertexts
     # must be bit-identical to table mode (same values mod q, canonical).
-    from seal_embedded_tpu.ckks.sym import sym_encrypt_batch
+    from seal_embedded_jax.ckks.sym import sym_encrypt_batch
     out = jax.jit(partial(sym_encrypt_batch, parms=parms,
                           ntt_variant="otf"))(values, sk, share, err)
     bitexact = ieee_backend  # encode=f64 inside sym_encrypt_batch
@@ -160,8 +157,8 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False):
     # fileops.c:208-255): write the adapter-format index map and ifft
     # root files, read them back, and run the pipeline CONSUMING them.
     import tempfile
-    from seal_embedded_tpu.io import serialize
-    from seal_embedded_tpu.ops.encode import (ifft_root_tables_from_file,
+    from seal_embedded_jax.io import serialize
+    from seal_embedded_jax.ops.encode import (ifft_root_tables_from_file,
                                               index_map_np)
     with tempfile.TemporaryDirectory() as d:
         imap_path = os.path.join(d, f"index_map_{n}.dat")
@@ -179,8 +176,8 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False):
 
     # Asymmetric: batch pipeline vs per-prime streaming must agree limb
     # by limb, and decrypt+decode within tolerance (ckks_asym.c:205-288).
-    from seal_embedded_tpu.ckks.asym import gen_pk_batch, make_asym_encryptor
-    from seal_embedded_tpu.ckks.stream import asym_encrypt_stream
+    from seal_embedded_jax.ckks.asym import gen_pk_batch, make_asym_encryptor
+    from seal_embedded_jax.ckks.stream import asym_encrypt_stream
     ep = jnp.asarray(rng.integers(-20, 21, n).astype(np.int32))
     pk0, pk1 = gen_pk_batch(
         sk, jnp.asarray(rng.integers(0, 2 ** 32, (1, 16)).astype(np.uint32)),
@@ -202,7 +199,7 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False):
     # re-check the baseline ciphertexts with the lazy INTT consuming
     # intt_fast_roots_*.dat — must be value-identical to the canonical
     # decrypt used by decode_check above.
-    from seal_embedded_tpu.ckks.sym import decrypt_batch
+    from seal_embedded_jax.ckks.sym import decrypt_batch
     with tempfile.TemporaryDirectory() as d:
         serialize.write_intt_roots(d, parms, fast=True)
         loaded = {}

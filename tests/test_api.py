@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seal_embedded_tpu import api
-from seal_embedded_tpu.config import Parms, PRIMES_27BIT
-from seal_embedded_tpu.io import network, serialize
+from seal_embedded_jax import api
+from seal_embedded_jax.config import Parms, PRIMES_27BIT
+from seal_embedded_jax.io import network, serialize
 
 from conftest import seed_bytes
 
@@ -35,8 +35,8 @@ def test_send_callback_streaming_order():
 
 
 def test_seeded_ct_roundtrip():
-    from seal_embedded_tpu.ckks.limbwise import make_c1_expander
-    from seal_embedded_tpu.ckks.sym import make_decryptor
+    from seal_embedded_jax.ckks.limbwise import make_c1_expander
+    from seal_embedded_jax.ckks.sym import make_decryptor
 
     ctx = _ctx()
     vals = np.linspace(-1, 1, 512, dtype=np.float32)[None, :]
@@ -49,7 +49,7 @@ def test_seeded_ct_roundtrip():
     assert seed == seed_bytes(2)
 
     # Receiver side: expand c1 from the seed, then decrypt.
-    from seal_embedded_tpu.ops.keccak import seed_to_words
+    from seal_embedded_jax.ops.keccak import seed_to_words
     sw = jnp.asarray(seed_to_words(seed)[None, :])
     c1, ok = make_c1_expander(ctx.parms)(sw)
     assert bool(np.asarray(ok).all())
@@ -60,7 +60,7 @@ def test_seeded_ct_roundtrip():
 
 
 def test_reverse_chain_walk():
-    from seal_embedded_tpu.ckks.limbwise import make_limbscan_encryptor
+    from seal_embedded_jax.ckks.limbwise import make_limbscan_encryptor
 
     parms = Parms(degree=64, moduli=PRIMES_27BIT[:3], scale=2.0 ** 20)
     rng = np.random.default_rng(0)
@@ -78,7 +78,7 @@ def test_reverse_chain_walk():
     # Reverse walk draws prime L-1 first: its c1 equals the forward walk's
     # prime-0 c1 only when the uniform draw consumed identical counters --
     # generally different streams, but each (c0, c1) must still decrypt.
-    from seal_embedded_tpu.ckks.sym import make_decryptor
+    from seal_embedded_jax.ckks.sym import make_decryptor
     parms_rev = Parms(degree=64, moduli=tuple(reversed(parms.moduli)),
                       scale=parms.scale)
     cen = np.asarray(make_decryptor(parms_rev)(rev["c0"], rev["c1"], sk))
@@ -98,10 +98,10 @@ def test_api_to_adapter_verify(tmp_path):
     adapter verify_ciphertexts flow (adapter.cpp:29-169): encrypt via the
     public API, dump cts in the printed-poly text format, then decrypt/
     decode them with the adapter and compare to the cleartext."""
-    from seal_embedded_tpu import adapter
-    from seal_embedded_tpu.golden.sampling import (
+    from seal_embedded_jax import adapter
+    from seal_embedded_jax.golden.sampling import (
         sample_small_poly_ternary_96)
-    from seal_embedded_tpu.golden.prng import Prng
+    from seal_embedded_jax.golden.prng import Prng
 
     ctx = _ctx()
     n = ctx.parms.degree
@@ -134,11 +134,11 @@ def test_api_to_adapter_verify(tmp_path):
 
 def test_adapter_verify_multiprime_and_corruption(tmp_path):
     """adapter verify decrypts EVERY prime (CRT-composed): corrupting any
-    single prime's component must fail the check (VERDICT r02 weak #4 /
+    single prime's component must fail the check (the
     adapter.cpp:130-140 oracle strength)."""
-    from seal_embedded_tpu import adapter
-    from seal_embedded_tpu.golden.prng import Prng
-    from seal_embedded_tpu.golden.sampling import (
+    from seal_embedded_jax import adapter
+    from seal_embedded_jax.golden.prng import Prng
+    from seal_embedded_jax.golden.sampling import (
         sample_small_poly_ternary_96)
 
     ctx = api.se_setup_default(api.SYM, sk_seed=seed_bytes(1))
@@ -186,9 +186,9 @@ def test_adapter_verify_cleartext_name_anchoring(tmp_path):
     (api_tests.c:73-75 names them "v (cleartext)"): a line named
     "conj_vals" — which CONTAINS the letter v — must not be misread as
     cleartext (ADVICE r3 sharp edge)."""
-    from seal_embedded_tpu import adapter
-    from seal_embedded_tpu.golden.prng import Prng
-    from seal_embedded_tpu.golden.sampling import (
+    from seal_embedded_jax import adapter
+    from seal_embedded_jax.golden.prng import Prng
+    from seal_embedded_jax.golden.sampling import (
         sample_small_poly_ternary_96)
 
     ctx = _ctx()
@@ -218,3 +218,24 @@ def test_adapter_verify_cleartext_name_anchoring(tmp_path):
                 "c1 (t0)", np.asarray(out["c1"])[i, 0]))
     assert adapter.verify_ciphertexts(
         str(ct_path), str(sk_path), degree=n, nprimes=ctx.parms.nprimes)
+
+
+def test_asym_setup_with_given_pk_golden():
+    """se_setup_custom(pk=(pk0, pk1)) + se_encrypt_seeded reproduce the
+    C-reference asym ciphertexts (n=4096, 3 primes)."""
+    import pathlib
+    data = np.load(pathlib.Path(__file__).parent / "golden_asym_4096_3.npz")
+    L, rows = 3, 2
+    pk = (np.stack([data[f"pk0_{i}"] for i in range(L)]),
+          np.stack([data[f"pk1_{i}"] for i in range(L)]))
+    ctx = api.se_setup_custom(4096, L, 2.0 ** 25, api.ASYM, pk=pk)
+    assert ctx.resolved_encode_mode() == "f64"
+    vals = np.stack([data[f"v_{t}"] for t in range(rows)])
+    out = api.se_encrypt_seeded(ctx, vals, seeds=[seed_bytes(3)] * rows)
+    assert bool(np.asarray(out["ok"]).all())
+    for t in range(rows):
+        for i in range(L):
+            assert np.array_equal(np.asarray(out["c0"])[i, t],
+                                  data[f"c0_{L * t + i}"])
+            assert np.array_equal(np.asarray(out["c1"])[i, t],
+                                  data[f"c1_{L * t + i}"])

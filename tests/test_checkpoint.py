@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 from functools import partial
 
-from seal_embedded_tpu.config import Parms, PRIMES_27BIT
-from seal_embedded_tpu.ckks.limbwise import sym_encrypt_limbscan
-from seal_embedded_tpu.utils.checkpoint import (CheckpointJournal,
+from seal_embedded_jax.config import Parms, PRIMES_27BIT
+from seal_embedded_jax.ckks.limbwise import sym_encrypt_limbscan
+from seal_embedded_jax.utils.checkpoint import (CheckpointJournal,
                                                 CheckpointedRunner)
 
 PARMS = Parms(degree=64, moduli=PRIMES_27BIT[:2], scale=2.0 ** 20)

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seal_embedded_tpu.ckks.limbwise import make_limbscan_encryptor
-from seal_embedded_tpu.config import default_parms
-from seal_embedded_tpu.ops import keccak as kc
+from seal_embedded_jax.ckks.limbwise import make_limbscan_encryptor
+from seal_embedded_jax.config import default_parms
+from seal_embedded_jax.ops import keccak as kc
 
 from conftest import seed_bytes
 
@@ -57,7 +57,7 @@ def test_asym_pipeline_bit_exact_deep_chain(n, nprimes, ntests):
     (adapter.cpp:196-231 param sets; ckks_asym.c is degree-generic).
     Vectors from golden_driver asym (seeds: sk=tag1, private=tag3,
     pk=tag4).  ntests trims batch to keep CPU runtime bounded."""
-    from seal_embedded_tpu.ckks.asym import make_asym_encryptor
+    from seal_embedded_jax.ckks.asym import make_asym_encryptor
     pk0, pk1, tests = _load_asym(n, nprimes)
     tests = tests[:ntests]
     parms = default_parms(n, nprimes)

@@ -6,8 +6,8 @@ kernel arithmetic to the C reference's f64 semantics."""
 import numpy as np
 import jax.numpy as jnp
 
-from seal_embedded_tpu.ops import f64p as fp
-from seal_embedded_tpu.ops import f64x as fx
+from seal_embedded_jax.ops import f64p as fp
+from seal_embedded_jax.ops import f64x as fx
 
 
 def _to_p(v_np):

@@ -1,5 +1,6 @@
 """Software IEEE-754 binary64 (ops/f64x.py) vs the CPU backend's real IEEE
-f64 — the correctness foundation of the bit-exact-on-TPU encode path."""
+f64 — the correctness foundation of the backend-independent bit-exact
+encode path."""
 
 from functools import partial
 
@@ -8,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seal_embedded_tpu.ops import f64x as fx
+from seal_embedded_jax.ops import f64x as fx
 
 
 def _rand_f64(rng, n, emin=-60, emax=60):
@@ -99,9 +100,9 @@ def test_round_away_i64():
 def test_encode_sf_bit_exact_vs_f64(n, L):
     """encode_sf == encode bit-for-bit on the IEEE (CPU) backend — which,
     since every f64x op is integer, proves encode_sf is bit-exact on ANY
-    backend, including TPU."""
-    from seal_embedded_tpu.config import default_parms
-    from seal_embedded_tpu.ops.encode import encode, encode_sf
+    backend."""
+    from seal_embedded_jax.config import default_parms
+    from seal_embedded_jax.ops.encode import encode, encode_sf
 
     P = default_parms(n, L)
     rng = np.random.default_rng(n)
@@ -114,8 +115,8 @@ def test_encode_sf_bit_exact_vs_f64(n, L):
 
 def test_encode_sf_golden(golden_sym):
     """encode_sf vs the C reference's conj_vals_int golden vectors."""
-    from seal_embedded_tpu.config import default_parms
-    from seal_embedded_tpu.ops.encode import encode_sf
+    from seal_embedded_jax.config import default_parms
+    from seal_embedded_jax.ops.encode import encode_sf
 
     P = default_parms(4096, 3)
     vs = np.stack([t["v"] for t in golden_sym["tests"]])

@@ -1,17 +1,16 @@
-"""Fused (TPU fast path) pipelines vs the reference-layout pipelines.
+"""Fused pipelines (the api's encrypt path) vs the reference-layout pipelines.
 
-On the CPU backend the fused paths fall back to the vmapped jnp NTT
-(bit-identical to the per-limb jnp NTT) so equality here proves the graph
-restructuring (stacked all-limb NTT, limb-decoupled arithmetic) preserves
-values; the Pallas kernels themselves are covered by interpret-mode tests
-in test_kernels.py and by the golden bit-exactness suite on hardware."""
+Equality here proves the graph restructuring (stacked all-limb NTT,
+limb-decoupled arithmetic) preserves values; the SHAKE kernel the fused
+paths use on a GPU is covered in interpret mode by test_keccak_kernel.py
+and compiled by chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seal_embedded_tpu.config import Parms, PRIMES_27BIT
+from seal_embedded_jax.config import Parms, PRIMES_27BIT
 
 P1K = Parms(degree=1024, moduli=PRIMES_27BIT[:2], scale=2.0 ** 20)
 
@@ -27,8 +26,8 @@ def _inputs(B, n, seed=0):
 
 def test_sym_fused_matches_limbwise():
     from functools import partial
-    from seal_embedded_tpu.ckks.fast import sym_encrypt_fused
-    from seal_embedded_tpu.ckks.limbwise import sym_encrypt_limbscan
+    from seal_embedded_jax.ckks.fast import sym_encrypt_fused
+    from seal_embedded_jax.ckks.limbwise import sym_encrypt_limbscan
 
     values, sk, share, err = _inputs(3, P1K.degree)
     fused = jax.jit(partial(sym_encrypt_fused, parms=P1K,
@@ -43,7 +42,7 @@ def test_sym_fused_matches_limbwise():
 
 def test_asym_fused_matches_batch():
     from functools import partial
-    from seal_embedded_tpu.ckks.asym import (
+    from seal_embedded_jax.ckks.asym import (
         asym_encrypt_batch, asym_encrypt_fused, gen_pk_batch)
 
     n = P1K.degree
@@ -67,7 +66,7 @@ def test_encode_dd_decode_exact():
     """dd encode is not bit-exact vs f64 but must round-trip decode well
     inside the 0.1 tolerance (README bit-exactness strategy, item 4)."""
     from functools import partial
-    from seal_embedded_tpu.ops.encode import encode, encode_dd, make_decoder
+    from seal_embedded_jax.ops.encode import encode, encode_dd, make_decoder
 
     rng = np.random.default_rng(3)
     vals = rng.uniform(-2, 2, (2, P1K.degree // 2)).astype(np.float32)

@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seal_embedded_tpu.ckks.asym import (asym_encrypt_fused, gen_pk_batch,
+from seal_embedded_jax.ckks.asym import (asym_encrypt_fused, gen_pk_batch,
                                          make_asym_encryptor)
-from seal_embedded_tpu.config import default_parms
-from seal_embedded_tpu.ops import keccak as kc
+from seal_embedded_jax.config import default_parms
+from seal_embedded_jax.ops import keccak as kc
 
 from conftest import seed_bytes
 
@@ -70,7 +70,7 @@ def test_gen_pk_bit_exact(golden_asym):
 
 
 def test_asym_pipeline_bit_exact(golden_asym):
-    """Batched TPU asym encode+encrypt == C reference, all tests/primes."""
+    """Batched asym encode+encrypt == C reference, all tests/primes."""
     tests = golden_asym["tests"]
     vs = np.stack([t["v"] for t in tests])
     B = vs.shape[0]

@@ -8,13 +8,13 @@ tests/conftest.py).
 import numpy as np
 import pytest
 
-from seal_embedded_tpu.config import default_parms, const_ratio
-from seal_embedded_tpu.golden import ckks
-from seal_embedded_tpu.golden.encode import encode_base
-from seal_embedded_tpu.golden.keccak import shake256, shake256_hashlib
-from seal_embedded_tpu.golden.ntt import intt_inpl, ntt_inpl, poly_mult_sb_negacyclic
-from seal_embedded_tpu.golden.prng import Prng
-from seal_embedded_tpu.golden.sampling import (
+from seal_embedded_jax.config import default_parms, const_ratio
+from seal_embedded_jax.golden import ckks
+from seal_embedded_jax.golden.encode import encode_base
+from seal_embedded_jax.golden.keccak import shake256, shake256_hashlib
+from seal_embedded_jax.golden.ntt import intt_inpl, ntt_inpl, poly_mult_sb_negacyclic
+from seal_embedded_jax.golden.prng import Prng
+from seal_embedded_jax.golden.sampling import (
     expand_poly_ternary, sample_add_poly_cbd_16, sample_poly_uniform,
     sample_small_poly_ternary_96)
 
@@ -54,7 +54,7 @@ def test_ntt_intt_roundtrip():
 
 
 def test_ntt_vs_schoolbook_small():
-    from seal_embedded_tpu.config import NTT_ROOTS
+    from seal_embedded_jax.config import NTT_ROOTS
     n, logn, q = 1024, 10, 134012929
     w = NTT_ROOTS[(n, q)]
     rng = np.random.default_rng(1)
@@ -102,7 +102,7 @@ def test_decrypt_decode_roundtrip(golden_sym):
         cen = ckks.decrypt_component(P, i, t["c0"][i].tolist(),
                                      t["c1"][i].tolist(), sk)
         assert np.array_equal(cen, t["pte"])
-    from seal_embedded_tpu.golden.encode import decode
+    from seal_embedded_jax.golden.encode import decode
     dec = decode(P, ckks.decrypt_component(P, 0, t["c0"][0].tolist(),
                                            t["c1"][0].tolist(), sk))
     assert np.abs(dec - t["v"]).max() < 0.1

@@ -7,7 +7,7 @@ import pathlib
 import numpy as np
 import pytest
 
-from seal_embedded_tpu.io import native, serialize
+from seal_embedded_jax.io import native, serialize
 
 REPO = pathlib.Path(__file__).parent.parent
 
@@ -64,7 +64,7 @@ def test_format_parse_poly_roundtrip_matches_python():
 def test_native_stream_file_matches_python_framing(tmp_path):
     """NativeStream.to_file + send_components produce exactly the bytes of
     io.network.file_sink fed by serialize.ct_component_bytes."""
-    from seal_embedded_tpu.io import native, network, serialize
+    from seal_embedded_jax.io import native, network, serialize
 
     if not native.available():
         pytest.skip("native library not built")
@@ -95,7 +95,7 @@ def test_native_stream_tcp_roundtrip():
     """Native TCP sender against a localhost server thread."""
     import socket
     import threading
-    from seal_embedded_tpu.io import native
+    from seal_embedded_jax.io import native
 
     if not native.available():
         pytest.skip("native library not built")

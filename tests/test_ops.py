@@ -1,4 +1,4 @@
-"""TPU ops (jnp path) vs the golden model — bit-exactness on CPU backend."""
+"""Batched ops (jnp path) vs the golden model — bit-exactness on CPU backend."""
 
 import hashlib
 from functools import partial
@@ -8,14 +8,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seal_embedded_tpu.config import default_parms
-from seal_embedded_tpu.golden import sampling as gs
-from seal_embedded_tpu.golden.ntt import intt_inpl, ntt_inpl
-from seal_embedded_tpu.golden.prng import Prng
-from seal_embedded_tpu.ops import keccak as kc
-from seal_embedded_tpu.ops import modarith as ma
-from seal_embedded_tpu.ops import sampling as sp
-from seal_embedded_tpu.ops import ntt as tntt
+from seal_embedded_jax.config import default_parms
+from seal_embedded_jax.golden import sampling as gs
+from seal_embedded_jax.golden.ntt import intt_inpl, ntt_inpl
+from seal_embedded_jax.golden.prng import Prng
+from seal_embedded_jax.ops import keccak as kc
+from seal_embedded_jax.ops import modarith as ma
+from seal_embedded_jax.ops import sampling as sp
+from seal_embedded_jax.ops import ntt as tntt
 
 P = default_parms(4096, 3)
 N, LOGN = P.degree, P.logn
@@ -185,8 +185,8 @@ def test_ntt_otf_matches_table_mode():
     """OTF-roots NTT (in-graph root synthesis + non-lazy Barrett
     butterflies, SE_NTT_TYPE 0 analog ntt.c:124-165) is value-identical
     to the table-mode NTT."""
-    from seal_embedded_tpu.ops.ntt import ntt, ntt_otf
-    from seal_embedded_tpu.config import PRIMES_30BIT
+    from seal_embedded_jax.ops.ntt import ntt, ntt_otf
+    from seal_embedded_jax.config import PRIMES_30BIT
 
     rng = np.random.default_rng(21)
     for n, q in ((512, Q), (4096, PRIMES_30BIT[0])):

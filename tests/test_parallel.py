@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seal_embedded_tpu.config import Parms, PRIMES_27BIT
-from seal_embedded_tpu.ops.ntt import ntt
-from seal_embedded_tpu.parallel.coeff_ntt import ntt_coeff_sharded
-from seal_embedded_tpu.parallel.mesh import make_mesh, sym_encrypt_sharded
+from seal_embedded_jax.config import Parms, PRIMES_27BIT
+from seal_embedded_jax.ops.ntt import ntt
+from seal_embedded_jax.parallel.coeff_ntt import ntt_coeff_sharded
+from seal_embedded_jax.parallel.mesh import make_mesh, sym_encrypt_sharded
 
 Q27 = PRIMES_27BIT[0]
 
@@ -37,7 +37,7 @@ def test_coeff_sharded_ntt_4step_flagship_degree():
 
 def test_sym_encrypt_sharded_matches_unsharded():
     from functools import partial
-    from seal_embedded_tpu.ckks.sym import sym_encrypt_batch
+    from seal_embedded_jax.ckks.sym import sym_encrypt_batch
 
     parms = Parms(degree=64, moduli=PRIMES_27BIT[:2], scale=2.0 ** 20)
     mesh = make_mesh(n_data=4, n_limb=2)
@@ -69,8 +69,8 @@ def _rand_inputs(parms, B, seed=0):
 def test_limb_sharded_sym_bit_exact():
     """shard_map limb pipeline == single-device 'parallel' layout, bit for
     bit, on a 4x2 data x limb mesh."""
-    from seal_embedded_tpu.ckks.limbwise import make_limbscan_encryptor
-    from seal_embedded_tpu.parallel.limbwise import (
+    from seal_embedded_jax.ckks.limbwise import make_limbscan_encryptor
+    from seal_embedded_jax.parallel.limbwise import (
         make_limb_sharded_encryptor)
 
     parms = Parms(degree=512, moduli=PRIMES_27BIT[:2], scale=2.0 ** 20)
@@ -94,8 +94,8 @@ def test_limb_sharded_sym_bit_exact():
 def test_limb_sharded_asym_bit_exact():
     """Asym shard_map limb pipeline == single-device asym batch path."""
     from functools import partial
-    from seal_embedded_tpu.ckks.asym import asym_encrypt_batch, gen_pk_batch
-    from seal_embedded_tpu.parallel.limbwise import (
+    from seal_embedded_jax.ckks.asym import asym_encrypt_batch, gen_pk_batch
+    from seal_embedded_jax.parallel.limbwise import (
         make_asym_limb_sharded_encryptor)
 
     parms = Parms(degree=512, moduli=PRIMES_27BIT[:2], scale=2.0 ** 20)
@@ -121,8 +121,8 @@ def test_multihost_mesh_bit_exact():
     """(host=2, data=2, limb=2) virtual mesh: the multi-host encryptor
     (batch over host x data via DCN-analog axis, limbs over ICI-analog
     axis) is bit-identical to the single-device 'parallel' layout."""
-    from seal_embedded_tpu.ckks.limbwise import make_limbscan_encryptor
-    from seal_embedded_tpu.parallel import multihost as mh
+    from seal_embedded_jax.ckks.limbwise import make_limbscan_encryptor
+    from seal_embedded_jax.parallel import multihost as mh
 
     parms = Parms(degree=512, moduli=PRIMES_27BIT[:2], scale=2.0 ** 20)
     mesh = mh.make_host_mesh(n_limb=2, n_hosts=2)
@@ -142,7 +142,7 @@ def test_multihost_mesh_bit_exact():
 
 
 def test_multihost_init_noop_single_process():
-    from seal_embedded_tpu.parallel import multihost as mh
+    from seal_embedded_jax.parallel import multihost as mh
     assert mh.init_distributed() is False
     assert mh.init_distributed(num_processes=1) is False
 
@@ -196,7 +196,7 @@ def _collective_volume(compiled_text):
     ("staged", ("collective-permute", 3), 1.0),
 ])
 def test_coeff_ntt_collective_volume(variant, ops, per_op_factor):
-    from seal_embedded_tpu.parallel.coeff_ntt import _sharded_ntt_cache
+    from seal_embedded_jax.parallel.coeff_ntt import _sharded_ntt_cache
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     D, n, B = 8, 4096, 4
@@ -222,7 +222,7 @@ def test_multihost_pipeline_collective_volume():
     claim: DCN/batch axes see zero collectives; adding any c0/c1-sized
     exchange, ~L_loc*B_loc*n*4 bytes, would more than double the bound
     asserted here)."""
-    from seal_embedded_tpu.parallel import multihost as mh
+    from seal_embedded_jax.parallel import multihost as mh
 
     parms = Parms(degree=512, moduli=PRIMES_27BIT[:2], scale=2.0 ** 20)
     mesh = mh.make_host_mesh(n_limb=2, n_hosts=2)

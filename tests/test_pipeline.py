@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seal_embedded_tpu import api
-from seal_embedded_tpu.config import default_parms
-from seal_embedded_tpu.ckks.sym import make_decryptor, make_sym_encryptor
-from seal_embedded_tpu.ckks.asym import make_asym_encryptor, gen_pk_batch
-from seal_embedded_tpu.ops import keccak as kc
-from seal_embedded_tpu.ops.encode import decode, encode
+from seal_embedded_jax import api
+from seal_embedded_jax.config import default_parms
+from seal_embedded_jax.ckks.sym import make_decryptor, make_sym_encryptor
+from seal_embedded_jax.ckks.asym import make_asym_encryptor, gen_pk_batch
+from seal_embedded_jax.ops import keccak as kc
+from seal_embedded_jax.ops.encode import decode, encode
 
 from conftest import seed_bytes
 
@@ -54,7 +54,7 @@ def test_sym_pipeline_bit_exact(golden_sym):
 def test_sym_limbscan_both_layouts(golden_sym):
     """Limb-scan pipeline: 'reference' layout must be bit-exact vs C golden
     vectors; 'parallel' layout must decrypt to the same pte."""
-    from seal_embedded_tpu.ckks.limbwise import make_limbscan_encryptor
+    from seal_embedded_jax.ckks.limbwise import make_limbscan_encryptor
     sk_packed = golden_sym["sk_packed"]
     sk_signed = np.array(
         [((sk_packed[i // 4] >> (6 - (i % 4) * 2)) & 3) - 1 for i in range(N)],
@@ -100,10 +100,10 @@ def test_sym_decrypt_decode_roundtrip():
 
 
 def test_asym_pipeline_vs_golden_model():
-    """TPU asym path vs the pure-Python golden model, same seeds."""
-    from seal_embedded_tpu.golden import ckks as gckks
-    from seal_embedded_tpu.golden.prng import Prng
-    from seal_embedded_tpu.golden.sampling import (
+    """Batched asym path vs the pure-Python golden model, same seeds."""
+    from seal_embedded_jax.golden import ckks as gckks
+    from seal_embedded_jax.golden.prng import Prng
+    from seal_embedded_jax.golden.sampling import (
         sample_poly_cbd_16, sample_small_poly_ternary_96, ternary_signed)
 
     sk_packed = sample_small_poly_ternary_96(N, Prng(seed_bytes(1)))
@@ -135,7 +135,7 @@ def test_asym_pipeline_vs_golden_model():
 
 
 def test_decode_op_roundtrip():
-    from seal_embedded_tpu.ops.encode import make_decoder
+    from seal_embedded_jax.ops.encode import make_decoder
     rng = np.random.default_rng(5)
     vals = rng.uniform(-2, 2, (2, N // 2)).astype(np.float32)
     pt, ok = jax.jit(partial(encode, parms=P))(jnp.asarray(vals))

@@ -11,8 +11,8 @@ import struct
 import numpy as np
 import pytest
 
-from seal_embedded_tpu.config import default_parms
-from seal_embedded_tpu.io import sealstream as ss
+from seal_embedded_jax.config import default_parms
+from seal_embedded_jax.io import sealstream as ss
 
 from conftest import seed_bytes
 
@@ -120,7 +120,7 @@ def test_public_key_stream_roundtrip():
 
 
 def test_adapter_emits_seal_streams_and_headers(tmp_path):
-    from seal_embedded_tpu import adapter
+    from seal_embedded_jax import adapter
     out = adapter.gen_save_all(str(tmp_path), degree=4096, nprimes=3,
                                sk_seed=seed_bytes(1), pk_seed=seed_bytes(41))
     n = 4096
@@ -131,7 +131,7 @@ def test_adapter_emits_seal_streams_and_headers(tmp_path):
     pk0, pk1 = ss.load_public_key(P, (tmp_path / f"pk_seal_{n}.dat")
                                   .read_bytes())
     # device-prime components identical to the .dat pk
-    from seal_embedded_tpu.io import serialize
+    from seal_embedded_jax.io import serialize
     for i, q in enumerate(P.moduli):
         want0 = serialize.read_pk_component(str(tmp_path), 0, n, q)
         assert np.array_equal(pk0[i].astype(np.uint32), want0)
@@ -139,9 +139,9 @@ def test_adapter_emits_seal_streams_and_headers(tmp_path):
     sp = ss.key_context_moduli(P)[3]
     assert pk0[3].max() < sp and pk0[3].any()
     # sk stream consistent with the packed sk: ntt(s) mod q0 matches
-    from seal_embedded_tpu.golden.ntt import ntt_inpl
-    from seal_embedded_tpu.golden.sampling import expand_poly_ternary
-    from seal_embedded_tpu.config import find_ntt_root
+    from seal_embedded_jax.golden.ntt import ntt_inpl
+    from seal_embedded_jax.golden.sampling import expand_poly_ternary
+    from seal_embedded_jax.config import find_ntt_root
     q0 = int(P.moduli[0])
     s = expand_poly_ternary(out["sk_packed"], n, q0)
     want = ntt_inpl(s, n, P.logn, q0, find_ntt_root(n, q0))

@@ -9,8 +9,8 @@ from http.server import BaseHTTPRequestHandler, HTTPServer
 import jax.numpy as jnp
 import numpy as np
 
-from seal_embedded_tpu.io import network
-from seal_embedded_tpu.utils import timing
+from seal_embedded_jax.io import network
+from seal_embedded_jax.utils import timing
 
 
 def test_timer_accumulates_and_resets():
